@@ -6,16 +6,16 @@ import os
 import jax
 import numpy as np
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import integrator, presets
-from raytracingthenextweekcuda_tpu.models.checkpoint import (
+from rtnw.config import RenderConfig
+from rtnw.models import integrator, presets
+from rtnw.models.checkpoint import (
     load_render_state,
     render_resumable,
     save_render_state,
 )
-from raytracingthenextweekcuda_tpu.models.film import Film
-from raytracingthenextweekcuda_tpu.utils.progress import Progress
-from raytracingthenextweekcuda_tpu.utils.timing import Timer, throughput
+from rtnw.models.film import Film
+from rtnw.utils.progress import Progress
+from rtnw.utils.timing import Timer, throughput
 
 CFG = RenderConfig(width=16, height=16, spp=4, bounces=3, spp_per_pass=2)
 
@@ -78,7 +78,7 @@ def test_render_resumable_matches_straight_render(tmp_path):
 
 
 def test_interactive_session_dirty_reset_and_screenshot(tmp_path):
-    from raytracingthenextweekcuda_tpu.apps.interactive import InteractiveSession
+    from rtnw.apps.interactive import InteractiveSession
 
     scene, camera = presets.diffuse_sphere_plane()
     cfg = RenderConfig(width=16, height=16, spp=1, bounces=3)
@@ -102,7 +102,7 @@ def test_interactive_session_dirty_reset_and_screenshot(tmp_path):
 
 
 def test_interactive_orbit_preserves_distance():
-    from raytracingthenextweekcuda_tpu.apps.interactive import InteractiveSession
+    from rtnw.apps.interactive import InteractiveSession
 
     scene, camera = presets.diffuse_sphere_plane()
     cfg = RenderConfig(width=8, height=8, spp=1, bounces=2)
@@ -122,16 +122,16 @@ def test_terminal_viewer_frame_and_live_loop(tmp_path):
     spp_per_frame on the next frame (main.cu:877-881 dirty protocol)."""
     import numpy as np
 
-    from raytracingthenextweekcuda_tpu.apps.interactive import (
+    from rtnw.apps.interactive import (
         InteractiveSession,
     )
-    from raytracingthenextweekcuda_tpu.apps.viewer import (
+    from rtnw.apps.viewer import (
         TerminalViewer,
         run_live,
     )
-    from raytracingthenextweekcuda_tpu.config import RenderConfig
-    from raytracingthenextweekcuda_tpu.models import presets
-    from raytracingthenextweekcuda_tpu.models.scene import finalize
+    from rtnw.config import RenderConfig
+    from rtnw.models import presets
+    from rtnw.models.scene import finalize
 
     scene, camera = presets.diffuse_sphere_plane()
     scene = finalize(scene)
@@ -167,7 +167,7 @@ def test_http_viewer_serves_frames():
 
     import numpy as np
 
-    from raytracingthenextweekcuda_tpu.apps.viewer import HTTPViewer
+    from rtnw.apps.viewer import HTTPViewer
 
     v = HTTPViewer(port=0)
     try:

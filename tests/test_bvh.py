@@ -3,12 +3,13 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from raytracingthenextweekcuda_tpu.io.procedural import uv_sphere_mesh
-from raytracingthenextweekcuda_tpu.ops import intersect, traverse
-from raytracingthenextweekcuda_tpu.ops.bvh import BVH, build_bvh, refit
-from raytracingthenextweekcuda_tpu.ops.geometry import Triangles
-from raytracingthenextweekcuda_tpu.ops.rays import Rays
+from rtnw.io.procedural import uv_sphere_mesh
+from rtnw.ops import intersect, traverse
+from rtnw.ops.bvh import BVH, build_bvh, refit
+from rtnw.ops.geometry import Triangles
+from rtnw.ops.rays import Rays
 
 INF = float("inf")
 
@@ -155,7 +156,7 @@ def test_vertex_gradient_through_bvh_hit():
 
 
 def test_cache_roundtrip(tmp_path):
-    from raytracingthenextweekcuda_tpu.io.bvh_cache import (
+    from rtnw.io.bvh_cache import (
         build_or_load,
         cache_path_for,
         load_bvh,
@@ -177,3 +178,43 @@ def test_cache_roundtrip(tmp_path):
     assert os.path.exists(cache_path_for(mesh_path, tris.vertices))
     b2 = build_or_load(tris, mesh_path)  # cache hit
     np.testing.assert_array_equal(np.asarray(b1.left), np.asarray(b2.left))
+
+
+def _sphere_mesh(seed):
+    mesh = uv_sphere_mesh(0.8 + 0.1 * seed, n_lat=8 + 4 * seed,
+                          n_lon=16 + 8 * seed)
+    return Triangles(
+        vertices=jnp.asarray(mesh),
+        material_id=jnp.zeros((mesh.shape[0],), jnp.int32),
+        mesh_id=jnp.zeros((mesh.shape[0],), jnp.int32),
+    )
+
+
+@pytest.mark.parametrize("builder", ["lbvh", "sah"])
+@pytest.mark.parametrize("mesh", ["soup", "sphere"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_traverse_winner_exact_vs_brute(builder, mesh, seed):
+    """The BVH walk finds exactly the brute-force closest triangle, for
+    both builders finalize() may use, and its t to a few ulps (the walk and
+    the (rays, triangles) broadcast round differently in the last bits)."""
+    from rtnw import native
+
+    if builder == "sah" and not native.available():
+        pytest.skip("native library could not be built")
+    tris = soup(300 + 50 * seed, seed=seed) if mesh == "soup" \
+        else _sphere_mesh(seed)
+    rays = random_rays(1024, seed=10 + seed, spread=4.0 if mesh == "soup"
+                       else 2.0)
+    bvh = native.build_sah_bvh(tris) if builder == "sah" else build_bvh(tris)
+    t, valid, _ = intersect.moller_trumbore(rays, tris.vertices, 1e-3, INF)
+    masked = np.where(np.asarray(valid), np.asarray(t), np.inf)
+    winner = masked.argmin(axis=1)
+    t_brute = masked[np.arange(masked.shape[0]), winner]
+    winner = np.where(np.isfinite(t_brute), winner, -1)
+    best_t, best_tri, _, _ = traverse.traverse(rays, tris, bvh, 1e-3, INF)
+    np.testing.assert_array_equal(np.asarray(best_tri), winner)
+    hit = winner >= 0
+    assert not np.isfinite(np.asarray(best_t)[~hit]).any()
+    np.testing.assert_allclose(np.asarray(best_t)[hit], t_brute[hit],
+                               rtol=1e-6)
+    assert hit.mean() > 0.05

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingthenextweekcuda_tpu.models import camera as cam
+from rtnw.models import camera as cam
 
 W, H = 16, 16
 

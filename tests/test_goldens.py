@@ -16,8 +16,8 @@ import os
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import integrator, presets
+from rtnw.config import RenderConfig
+from rtnw.models import integrator, presets
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 
@@ -51,27 +51,25 @@ def test_golden(name):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_golden_fused_path_matches(name):
-    """The packed/Pallas path must reproduce the golden too."""
-    from raytracingthenextweekcuda_tpu.models.scene import finalize
+    """The megastep (Triton kernel, interpreted here) must reproduce the
+    golden too."""
+    from tests.test_bounce_kernel import megastep_mean
 
     build, kw = CASES[name]
     path = os.path.join(GOLDEN_DIR, f"{name}.npz")
     with np.load(path) as z:
         golden = z["image"]
     scene, camera = build()
-    scene = finalize(scene, use_bvh=False)
-    cfg = RenderConfig(**kw)
-    img = np.asarray(integrator.render(scene, camera, cfg).mean)
+    img = megastep_mean(scene, camera, RenderConfig(**kw))
     # Boundary-epsilon cases may pick a different (equally valid) closest
-    # hit in the fused kernel; allow a small fraction of outlier pixels.
+    # hit in the megastep; allow a small fraction of outlier pixels.
     # smallpt gets a bigger budget: its 1e5-radius spheres make the f32
     # sphere quadratic catastrophically cancel (|oc|^2 - r^2 ~ 1e10 with
     # ~1e3 ulp), so last-ulp t differences between the two pipelines shift
-    # visible hit points — same conditioning the CUDA reference has. With
-    # the fused bounce megastep EVERY bounce's hit point differs in the
-    # last ulps, so per-path divergence compounds (measured 11.8% of pixels
-    # past the elementwise threshold while the image mean agrees to 5e-3 —
-    # two estimators of the same integral; see test_bounce_kernel.py).
+    # visible hit points — same conditioning the CUDA reference has. In the
+    # megastep EVERY bounce's hit point differs in the last ulps, so
+    # per-path divergence compounds while the image mean agrees — two
+    # estimators of the same integral; see test_bounce_kernel.py.
     budget = 0.20 if name == "smallpt" else 0.005
     diff = np.abs(img - golden)
     frac_off = (diff > 5e-3 + 1e-2 * np.abs(golden)).mean()

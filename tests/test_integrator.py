@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import camera as cam
-from raytracingthenextweekcuda_tpu.models import integrator
-from raytracingthenextweekcuda_tpu.models.film import Film, to_image, tonemap_u8
-from raytracingthenextweekcuda_tpu.models.scene import SceneBuilder
-from raytracingthenextweekcuda_tpu.ops.rays import Rays
+from rtnw.config import RenderConfig
+from rtnw.models import camera as cam
+from rtnw.models import integrator
+from rtnw.models.film import Film, to_image, tonemap_u8
+from rtnw.models.scene import SceneBuilder
+from rtnw.ops.rays import Rays
 
 from tests.oracle import OracleScene, render_oracle
 
@@ -182,3 +182,36 @@ def test_to_image_flips_vertically():
     film = film.add(grad, 1)
     img = to_image(film)
     assert img[0, 0, 0] > img[1, 0, 0]  # bright film row (y=1) ends on top
+
+
+def _engine_scenes():
+    """(unfinalized analytic, finalized analytic, finalized BVH mesh)."""
+    from rtnw.io.procedural import uv_sphere_mesh
+    from rtnw.models.scene import BVH_THRESHOLD, finalize
+
+    b = SceneBuilder()
+    b.lambertian(0, (0.7, 0.3, 0.3))
+    b.sphere((0, 0, -1), 0.5, 0)
+    b.mesh(uv_sphere_mesh(0.4, (1, 0, -1), 4, 8), 0)
+    plain = b.build()
+    b.mesh(uv_sphere_mesh(0.4, (-1, 0, -1), 16, 32), 0)
+    big = b.build()
+    assert big.triangles.count > BVH_THRESHOLD >= plain.triangles.count
+    return {"unfinalized": plain, "finalized": finalize(plain),
+            "bvh": finalize(big)}
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+@pytest.mark.parametrize("kind,on_gpu,on_cpu", [
+    ("unfinalized", integrator.XLA, integrator.XLA),
+    ("finalized", integrator.MEGASTEP, integrator.XLA),
+    ("bvh", integrator.XLA_BVH, integrator.XLA_BVH),
+])
+def test_select_engine(platform, kind, on_gpu, on_cpu, monkeypatch):
+    """One selection point, from the platform and what the scene holds:
+    the megastep only on a GPU and only for a scene finalize() packed for
+    it; a CPU never runs a kernel; a BVH scene always walks its BVH."""
+    scene = _engine_scenes()[kind]
+    monkeypatch.setattr(integrator.jax, "default_backend", lambda: platform)
+    expect = on_gpu if platform == "gpu" else on_cpu
+    assert integrator.select_engine(scene) == expect

@@ -3,14 +3,14 @@
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingthenextweekcuda_tpu.models.scene import SceneBuilder
-from raytracingthenextweekcuda_tpu.ops import intersect
-from raytracingthenextweekcuda_tpu.ops.geometry import (
+from rtnw.models.scene import SceneBuilder
+from rtnw.ops import intersect
+from rtnw.ops.geometry import (
     PLANE_XY,
     PLANE_XZ,
     Triangles,
 )
-from raytracingthenextweekcuda_tpu.ops.rays import Rays
+from rtnw.ops.rays import Rays
 
 INF = float("inf")
 

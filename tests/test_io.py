@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu.io.image import read_png, write_png, write_ppm
-from raytracingthenextweekcuda_tpu.io.obj import load_obj, parse_obj
-from raytracingthenextweekcuda_tpu.io.ply import load_ply, normalize_mesh, parse_ply
-from raytracingthenextweekcuda_tpu.io.procedural import (
+from rtnw.io.image import read_png, write_png, write_ppm
+from rtnw.io.obj import load_obj, parse_obj
+from rtnw.io.ply import load_ply, normalize_mesh, parse_ply
+from rtnw.io.procedural import (
     cube_mesh,
     uv_sphere_mesh,
     write_obj,
 )
-from raytracingthenextweekcuda_tpu.io.yaml_scene import load_scene
+from rtnw.io.yaml_scene import load_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_MODELS = "/root/reference/RayTracingTheNextWeekCUDA/resources/models"
@@ -156,8 +156,71 @@ def test_all_reference_yaml_scenes_load(name):
     )
     assert scene.materials.kind.shape[0] >= 1
     assert float(camera.fov) > 0
-    # Every scene must also pack for the fused kernels.
-    from raytracingthenextweekcuda_tpu.models.scene import finalize
+    # Every scene must also finalize for one of the engines.
+    from rtnw.models.scene import finalize
 
-    packed = finalize(scene).packed
-    assert packed is not None and packed.shaded
+    ready = finalize(scene)
+    assert ready.packed is not None or ready.bvh is not None
+
+
+SCENE_FILES = sorted(
+    f for f in os.listdir(os.path.join(REPO, "scenes")) if f.endswith(".yaml")
+)
+
+
+@pytest.mark.parametrize("name", SCENE_FILES)
+def test_yaml_parser_matches_pyyaml_scene(name, monkeypatch):
+    """Every shipped scene loads to the same scene with the built-in parser
+    as with PyYAML (where PyYAML is installed)."""
+    yaml = pytest.importorskip("yaml")
+    import jax
+
+    from rtnw.io import yaml_scene
+
+    path = os.path.join(REPO, "scenes", name)
+    ours, cam = yaml_scene.load_scene(path)
+    monkeypatch.setattr(yaml_scene, "parse_yaml", yaml.safe_load)
+    ref, ref_cam = yaml_scene.load_scene(path)
+    for a, b in zip(jax.tree_util.tree_leaves((ours, cam)),
+                    jax.tree_util.tree_leaves((ref, ref_cam))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_yaml_parser_subset():
+    from rtnw.io.yaml_scene import parse_yaml
+
+    text = """# header
+camera:
+  eye: [0.0, -1, 2.5e1]   # trailing comment
+  label: "a # b"
+objects:
+  - plane:
+      twoSide: false
+      material: {type: 3, albedo: [1.0, 1.0, 1.0], name: 'x y'}
+  -
+    sphere: {radius: 0.5}
+  - 7
+empty:
+"""
+    assert parse_yaml(text) == {
+        "camera": {"eye": [0.0, -1, 25.0], "label": "a # b"},
+        "objects": [
+            {"plane": {"twoSide": False, "material": {
+                "type": 3, "albedo": [1.0, 1.0, 1.0], "name": "x y"}}},
+            {"sphere": {"radius": 0.5}},
+            7,
+        ],
+        "empty": None,
+    }
+
+
+@pytest.mark.parametrize("bad", [
+    "a: [1, 2\n",          # unterminated flow sequence
+    "a: 1\n  b: 2\n",      # indentation that opens nothing
+    "a: {x 1}\n",          # flow mapping without ':'
+])
+def test_yaml_parser_rejects_malformed(bad):
+    from rtnw.io.yaml_scene import parse_yaml
+
+    with pytest.raises(ValueError):
+        parse_yaml(bad)

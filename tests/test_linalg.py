@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingthenextweekcuda_tpu.ops import linalg
+from rtnw.ops import linalg
 
 
 def test_dot_cross_length():

@@ -1,4 +1,4 @@
-"""End-to-end large-mesh renders: BVH + fused two-level dispatch.
+"""End-to-end large-mesh renders: BVH walk vs brute force.
 
 BASELINE config 4 (OBJ/PLY mesh under BVH traversal) at test scale, using
 the reference's bunny.ply when mounted, else a procedural dense sphere.
@@ -10,11 +10,11 @@ import jax
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.io.procedural import uv_sphere_mesh
-from raytracingthenextweekcuda_tpu.models import integrator
-from raytracingthenextweekcuda_tpu.models.camera import Camera
-from raytracingthenextweekcuda_tpu.models.scene import SceneBuilder, finalize
+from rtnw.config import RenderConfig
+from rtnw.io.procedural import uv_sphere_mesh
+from rtnw.models import integrator
+from rtnw.models.camera import Camera
+from rtnw.models.scene import SceneBuilder, finalize
 
 BUNNY = "/root/reference/RayTracingTheNextWeekCUDA/resources/models/bunny/bunny.ply"
 
@@ -56,7 +56,7 @@ def test_dense_mesh_bvh_matches_brute():
 @pytest.mark.skipif(not os.path.exists(BUNNY), reason="reference bunny absent")
 @pytest.mark.slow
 def test_bunny_bvh_render():
-    from raytracingthenextweekcuda_tpu.io.ply import load_ply
+    from rtnw.io.ply import load_ply
 
     tris = load_ply(BUNNY)  # ~5k triangles, normalized to unit box
     scene, camera = build_mesh_scene(tris)
@@ -65,30 +65,27 @@ def test_bunny_bvh_render():
 
 
 def test_mesh_vertex_gradient_through_tile_bvh():
-    """d(hit t)/d(vertices) through the tile-BVH winner path vs FD.
+    """d(hit t)/d(vertices) through the BVH mesh path vs FD.
 
-    The work-list winner kernel is selection-only (stop-gradient); the
-    differentiable recompute (ops/fused.py) gathers the winning triangle's
-    LIVE vertices, so shifting the mesh moves hit distances with exact
-    first-order gradients at fixed topology — the capability that makes
-    inverse rendering on meshes run at production-kernel speed.
+    The BVH walk is selection-only (stop-gradient); the hit is recomputed
+    from the winning triangle's LIVE vertices (ops/traverse.intersect_bvh),
+    so shifting the mesh moves hit distances with exact first-order
+    gradients at fixed topology — what makes inverse rendering on meshes
+    work through the same engine that renders them.
     """
     import jax
     import jax.numpy as jnp
 
-    from raytracingthenextweekcuda_tpu.models import camera as camera_mod
-    from raytracingthenextweekcuda_tpu.ops.fused import intersect_scene_fused
+    from rtnw.models import camera as camera_mod
 
     tris = uv_sphere_mesh(0.9, (0, 0, 0), 16, 32)
     scene, camera = build_mesh_scene(tris)
     scene = finalize(scene, use_bvh=True)
-    assert scene.packed.leaf_bounds is not None
+    assert integrator.select_engine(scene) == integrator.XLA_BVH
 
     frame = camera_mod.derive(camera, 1.0)
     rays, _ = camera_mod.generate_rays(frame, jax.random.key(2), 24, 24)
-    base_hit = intersect_scene_fused(
-        scene, scene.packed, rays, 1e-3, interpret=True
-    )
+    base_hit = integrator.intersect_scene(scene, rays, 1e-3, float("inf"))
     mesh_mask = base_hit.valid & (base_hit.material_id == 1)
     assert bool(mesh_mask.sum() > 20)
 
@@ -97,10 +94,9 @@ def test_mesh_vertex_gradient_through_tile_bvh():
         s = scene._replace(
             triangles=scene.triangles._replace(vertices=verts)
         )
-        # packed stays FIXED (fixed-topology winner selection); only the
+        # The BVH stays FIXED (fixed-topology winner selection); only the
         # recompute sees the shifted vertices.
-        hit = intersect_scene_fused(s, scene.packed, rays, 1e-3,
-                                    interpret=True)
+        hit = integrator.intersect_scene(s, rays, 1e-3, float("inf"))
         return jnp.sum(jnp.where(mesh_mask, hit.t, 0.0))
 
     g = jax.grad(loss)(jnp.float32(0.0))

@@ -1,18 +1,24 @@
 """Native binned-SAH builder vs LBVH: identical traversal results, same
 tree contract, and a tree-quality (SAH cost) comparison."""
 
+import os
+
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu import native
-from raytracingthenextweekcuda_tpu.ops import intersect, traverse
-from raytracingthenextweekcuda_tpu.ops.bvh import build_bvh
+from rtnw import native
+from rtnw.ops import intersect, traverse
+from rtnw.ops.bvh import build_bvh
 
 from tests.test_bvh import random_rays, soup
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library not built"
-)
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    """Built from native/*.cpp at first use; skips where no compiler is."""
+    if not native.available():
+        pytest.skip(f"native library could not be built: {native._BUILD_ERROR}")
+
 
 INF = float("inf")
 
@@ -63,3 +69,11 @@ def test_sah_tree_no_worse_than_lbvh():
     # Total normalized surface area (expected node visits proxy): SAH should
     # be competitive or better.
     assert _sah_cost(sah) <= _sah_cost(lbvh) * 1.1
+
+
+def test_build_from_sources():
+    """The library is compiled from native/*.cpp (nothing binary is kept in
+    the repository) and is fresh afterwards."""
+    path = native.build()
+    assert path == native.LIB_PATH and os.path.getsize(path) > 0
+    assert not native._stale()

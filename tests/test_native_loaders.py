@@ -2,7 +2,7 @@
 
 The native loaders are the counterpart of the reference's C++ asset layer
 (ModelLoader.cpp OBJ, Loader.cpp PLY); the Python parsers in io/ are the
-oracle. Skipped when librtnw_native.so isn't built.
+oracle. Skipped where the library cannot be built.
 """
 
 import struct
@@ -10,13 +10,17 @@ import struct
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu import native
-from raytracingthenextweekcuda_tpu.io import obj as obj_mod
-from raytracingthenextweekcuda_tpu.io import ply as ply_mod
+from rtnw import native
+from rtnw.io import obj as obj_mod
+from rtnw.io import ply as ply_mod
 
-pytestmark = pytest.mark.skipif(
-    not native.loaders_available(), reason="native loaders not built"
-)
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    """Built from native/*.cpp at first use; skips where no compiler is."""
+    if not native.available():
+        pytest.skip(f"native library could not be built: {native._BUILD_ERROR}")
+
 
 OBJ_TEXT = """# comment
 v 0.0 0.0 0.0

@@ -14,12 +14,12 @@ import jax
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import film as film_mod
-from raytracingthenextweekcuda_tpu.models import integrator
-from raytracingthenextweekcuda_tpu.models.camera import Camera
-from raytracingthenextweekcuda_tpu.models.scene import SceneBuilder, finalize
-from raytracingthenextweekcuda_tpu.ops import geometry as geom
+from rtnw.config import RenderConfig
+from rtnw.models import film as film_mod
+from rtnw.models import integrator
+from rtnw.models.camera import Camera
+from rtnw.models.scene import SceneBuilder, finalize
+from rtnw.ops import geometry as geom
 
 from tests.oracle import OracleScene, render_oracle
 
@@ -146,7 +146,7 @@ def test_cornellbox0_vs_reference_committed_render():
     """
     from PIL import Image
 
-    from raytracingthenextweekcuda_tpu.io.yaml_scene import load_scene
+    from rtnw.io.yaml_scene import load_scene
 
     ref_png = np.asarray(Image.open(
         f"{REF}/images/"
@@ -213,7 +213,7 @@ def test_cornellbox2_pixelwise_vs_oracle_and_reference_golden():
     import yaml as yaml_mod
     from PIL import Image
 
-    from raytracingthenextweekcuda_tpu.io.yaml_scene import load_scene
+    from rtnw.io.yaml_scene import load_scene
 
     ref_png = np.asarray(Image.open(
         f"{REF}/CornellBox2.png").convert("RGB")).astype(np.float64) / 255.0
@@ -313,7 +313,7 @@ def test_pathb_production_scene_vs_committed_render_png():
     per-channel brightness against the committed PNG."""
     from PIL import Image
 
-    from raytracingthenextweekcuda_tpu.io.ply import load_ply
+    from rtnw.io.ply import load_ply
 
     ref_png = np.asarray(Image.open(
         f"{REF}/render.png").convert("RGB")).astype(np.float64) / 255.0
@@ -384,7 +384,7 @@ def test_published_bench_scene_vs_timed_golden_png():
     """
     from PIL import Image
 
-    from raytracingthenextweekcuda_tpu.apps.bench_scenes import (
+    from rtnw.apps.bench_scenes import (
         published_mesh_scene,
     )
 

@@ -8,10 +8,10 @@ independent implementation.
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import integrator
-from raytracingthenextweekcuda_tpu.models.camera import Camera
-from raytracingthenextweekcuda_tpu.models.scene import SceneBuilder
+from rtnw.config import RenderConfig
+from rtnw.models import integrator
+from rtnw.models.camera import Camera
+from rtnw.models.scene import SceneBuilder
 
 from tests.oracle import OracleScene, render_oracle
 

@@ -7,17 +7,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import integrator, presets
-from raytracingthenextweekcuda_tpu.parallel.mesh import make_mesh
-from raytracingthenextweekcuda_tpu.parallel.render import (
+from rtnw.config import RenderConfig
+from rtnw.models import integrator, presets
+from rtnw.parallel.mesh import make_mesh
+from rtnw.parallel.render import (
     render_pass_sharded,
     render_sharded,
 )
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 virtual devices"
-)
+
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+
 
 CFG = RenderConfig(width=32, height=32, spp=4, bounces=4, spp_per_pass=4)
 
@@ -104,25 +108,36 @@ def test_graft_entry_dryrun_multichip():
     mod.dryrun_multichip(8)
 
 
-def test_sharded_fused_megastep_bit_identical():
-    """A FINALIZED scene under shard_map runs the whole-render megastep
-    (parallel.render._pass_local fast path) — Pallas-under-shard_map —
-    and still matches the single-device render bit-for-bit."""
-    from raytracingthenextweekcuda_tpu.models.scene import finalize
+def test_sharded_fused_megastep_bit_identical(monkeypatch):
+    """With the megastep selected, a finalized scene under shard_map runs
+    the whole-render kernel over each device's global pixel ids
+    (parallel.render._pass_local) and matches the single-device render
+    bit-for-bit. The kernel runs in the Pallas interpreter here."""
+    import dataclasses
+    import functools
+
+    from rtnw.models.scene import finalize
+    from rtnw.ops.pallas import bounce_kernel
 
     scene, camera = presets.cornell_box()
     scene = finalize(scene)
-    assert integrator._fused_eligible(scene, CFG)
+    monkeypatch.setattr(integrator, "select_engine",
+                        lambda s: integrator.MEGASTEP)
+    monkeypatch.setattr(bounce_kernel, "render_samples", functools.partial(
+        bounce_kernel.render_samples, interpret=True))
+    # A config no other test traces, so both jitted passes compile afresh
+    # under the patched selection.
+    cfg = dataclasses.replace(CFG, seed=515151)
     key = jax.random.key(11)
-    single = integrator.render_pass(scene, camera, key, CFG, 4)
-    sharded = render_pass_sharded(scene, camera, key, CFG, 4, make_mesh(8))
+    single = integrator.render_pass(scene, camera, key, cfg, 4)
+    sharded = render_pass_sharded(scene, camera, key, cfg, 4, make_mesh(8))
     np.testing.assert_array_equal(np.asarray(single), np.asarray(sharded))
 
 
-def _tile_bvh_mesh_scene():
-    from raytracingthenextweekcuda_tpu.io.procedural import uv_sphere_mesh
-    from raytracingthenextweekcuda_tpu.models.camera import Camera
-    from raytracingthenextweekcuda_tpu.models.scene import (
+def _bvh_mesh_scene():
+    from rtnw.io.procedural import uv_sphere_mesh
+    from rtnw.models.camera import Camera
+    from rtnw.models.scene import (
         SceneBuilder,
         finalize,
     )
@@ -141,10 +156,10 @@ def _tile_bvh_mesh_scene():
 
 
 def test_sharded_mesh_path_bit_identical():
-    """The PRODUCTION mesh path (tile-BVH winner kernel + sorted wavefront,
-    Pallas-under-shard_map) renders bit-identically to single-device."""
-    scene, camera = _tile_bvh_mesh_scene()
-    assert integrator._sorted_eligible(scene, CFG)
+    """The mesh path (the XLA engine's BVH walk under shard_map) renders
+    bit-identically to single-device."""
+    scene, camera = _bvh_mesh_scene()
+    assert integrator.select_engine(scene) == integrator.XLA_BVH
     key = jax.random.key(13)
     single = integrator.render_pass(scene, camera, key, CFG, 4)
     sharded = render_pass_sharded(scene, camera, key, CFG, 4, make_mesh(8))
@@ -152,12 +167,10 @@ def test_sharded_mesh_path_bit_identical():
 
 
 def test_sharded_mesh_vertex_gradients_match_single_device():
-    """Triangle-VERTEX gradients through the winner-kernel mesh path,
-    psum'd over 8 virtual chips == single-device gradients."""
-    import dataclasses
-
-    scene, camera = _tile_bvh_mesh_scene()
-    cfg = dataclasses.replace(CFG, fused_bounce=False)
+    """Triangle-VERTEX gradients through the BVH mesh path, psum'd over 8
+    virtual devices == single-device gradients."""
+    scene, camera = _bvh_mesh_scene()
+    cfg = CFG
     key = jax.random.key(14)
     mesh = make_mesh(8)
     verts0 = scene.triangles.vertices
@@ -191,7 +204,7 @@ def test_measure_scaling_virtual_mesh():
     """measure_scaling runs end-to-end on the virtual mesh and reports a
     positive rate per device count (no efficiency assertion on CPU — the
     virtual devices share one host's cores)."""
-    from raytracingthenextweekcuda_tpu.parallel.multihost import (
+    from rtnw.parallel.multihost import (
         measure_scaling,
     )
 
@@ -203,18 +216,18 @@ def test_measure_scaling_virtual_mesh():
 
 
 def test_measure_scaling_mesh_scene():
-    """The scaling harness also runs the PRODUCTION mesh path (tile-BVH
-    winner kernel under shard_map) — the scaling story covers the mesh
-    engine, not just the analytic preset."""
+    """The scaling harness also runs the mesh path (the BVH walk under
+    shard_map) — the scaling story covers the mesh engine, not just the
+    analytic preset."""
     import dataclasses
 
-    from raytracingthenextweekcuda_tpu.parallel.multihost import (
+    from rtnw.parallel.multihost import (
         measure_scaling,
     )
 
-    scene, camera = _tile_bvh_mesh_scene()
+    scene, camera = _bvh_mesh_scene()
     cfg = dataclasses.replace(CFG, width=32, height=32, bounces=3)
-    assert integrator._sorted_eligible(scene, cfg)
+    assert integrator.select_engine(scene) == integrator.XLA_BVH
     rates = measure_scaling(scene, camera, cfg, device_counts=[1, 2],
                             spp=2, verbose=False)
     assert set(rates) == {1, 2}

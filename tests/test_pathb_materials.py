@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import integrator, presets
-from raytracingthenextweekcuda_tpu.models.scene import SceneBuilder
-from raytracingthenextweekcuda_tpu.ops.geometry import REFRACTION
+from rtnw.config import RenderConfig
+from rtnw.models import integrator, presets
+from rtnw.models.scene import SceneBuilder
+from rtnw.ops.geometry import REFRACTION
 from tests.test_materials import setup
 
-from raytracingthenextweekcuda_tpu.ops.materials import scatter
+from rtnw.ops.materials import scatter
 
 
 def keys_for(rays):
@@ -53,7 +53,7 @@ def test_additive_emission_keeps_bouncing():
     b.material(0, 0, (0.5, 0.5, 0.5), 0.0, emission=(0.3, 0.3, 0.3))
     b.sphere((0, 0, 0), 20.0, 0)
     scene = b.build()
-    from raytracingthenextweekcuda_tpu.models.camera import Camera
+    from rtnw.models.camera import Camera
 
     camera = Camera.make(eye=(0, 0, 1), center=(0, 0, -1), fov=60.0,
                          aperture=0.0, focus_distance=2.0)

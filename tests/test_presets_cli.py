@@ -6,8 +6,8 @@ import sys
 
 import numpy as np
 
-from raytracingthenextweekcuda_tpu.config import RenderConfig
-from raytracingthenextweekcuda_tpu.models import integrator, presets
+from rtnw.config import RenderConfig
+from rtnw.models import integrator, presets
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,14 +64,14 @@ def test_cli_render_end_to_end(tmp_path):
     env = dict(os.environ, RTNW_PLATFORM="cpu")
     proc = subprocess.run(
         [
-            sys.executable, "-m", "raytracingthenextweekcuda_tpu.cli", "render",
+            sys.executable, "-m", "rtnw.cli", "render",
             "--preset", "sphere-plane", "--width", "32", "--height", "32",
             "--spp", "2", "--bounces", "2", "--out", out,
         ],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=600,
     )
     assert proc.returncode == 0, proc.stderr
-    from raytracingthenextweekcuda_tpu.io.image import read_png
+    from rtnw.io.image import read_png
 
     img = read_png(out)
     assert img.shape == (32, 32, 3)
@@ -83,7 +83,7 @@ def test_cli_render_yaml_scene(tmp_path):
     env = dict(os.environ, RTNW_PLATFORM="cpu")
     proc = subprocess.run(
         [
-            sys.executable, "-m", "raytracingthenextweekcuda_tpu.cli", "render",
+            sys.executable, "-m", "rtnw.cli", "render",
             "--scene", os.path.join(REPO, "scenes", "cornellbox.yaml"),
             "--width", "24", "--height", "24", "--spp", "2", "--bounces", "3",
             "--out", out,

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracingthenextweekcuda_tpu.ops import linalg, sampling
+from rtnw.ops import linalg, sampling
 
 N = 200_000
 
